@@ -1,5 +1,5 @@
 """Second-moment staggered correlation length from the committed S(q)
-maps (pure post-processing — no TPU, no sampling).
+maps (pure post-processing — no accelerator, no sampling).
 
 examples/staggered_flagship.py saves the full-Brillouin-zone
 longitudinal structure factor S(q) for each flagship artifact

@@ -2,17 +2,18 @@
 
 The symmetrized 10x10 fan-out is sample_chunk x 200 bonds x 8 orbit
 configurations of 100-site conv activations — chunk SMALL (16).
-Usage: PYTHONPATH=/root/repo python examples/eval_10x10_artifact.py [path]
+Usage: PYTHONPATH=. python examples/eval_10x10_artifact.py [path]
 """
 import os, sys
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import jax
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.evaluate import evaluate_operator
 
 path = sys.argv[1] if len(sys.argv) > 1 else \
     'artifacts/heisenberg_10x10_symconv_v2.msgpack'
@@ -25,7 +26,7 @@ cfg = Config(num_sites=100, size_x=10, size_y=10,
              num_monte_carlo_sweeps=2, num_evaluation_samples=300,
              energy_chunk_samples=16, seed=97)
 wf = build_wavefunction(cfg)
-params = serialization.from_bytes(
+params = codec.from_bytes(
     wf.init(jax.random.key(0)), open(path, 'rb').read())
 ham = HeisenbergHamiltonian(lattice.square_lattice_bonds(10, 10), -1.0, 1.0,
                             sample_chunk=cfg.energy_chunk_samples)

@@ -1,16 +1,17 @@
 """Chunked final MC evaluation of a 6x6 artifact (OOM-safe).
 
-Usage: PYTHONPATH=/root/repo python examples/eval_6x6_artifact.py [path]
+Usage: PYTHONPATH=. python examples/eval_6x6_artifact.py [path]
 """
 import os, sys
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import jax
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.evaluate import evaluate_operator
 
 path = sys.argv[1] if len(sys.argv) > 1 else \
     'artifacts/heisenberg_6x6_symconv_v2.msgpack'
@@ -24,7 +25,7 @@ cfg = Config(num_sites=36, size_x=6, size_y=6,
              num_monte_carlo_sweeps=2, num_evaluation_samples=600,
              energy_chunk_samples=128, seed=97)
 wf = build_wavefunction(cfg)
-params = serialization.from_bytes(
+params = codec.from_bytes(
     wf.init(jax.random.key(0)), open(path, 'rb').read())
 ham = HeisenbergHamiltonian(lattice.square_lattice_bonds(6, 6), -1.0, 1.0,
                             sample_chunk=cfg.energy_chunk_samples)

@@ -20,15 +20,15 @@ The companion queue stage measures E(Sz=2) at 6x6 with the same sector
 pipeline, giving the in-house Delta_2/Delta_1 ~ 3 check at the flagship
 lattice itself.
 
-Run: JAX_PLATFORMS=cpu PYTHONPATH=/root/repo \
+Run: JAX_PLATFORMS=cpu PYTHONPATH=. \
     python examples/gap_tower_check.py
 """
 import os
 os.environ.setdefault('JAX_PLATFORMS', 'cpu')
 import numpy as np
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.utils import ed
 
 CHI_INF = 0.065            # chi_perp of the 2-D AFM (series/QMC)
 VMC_GAP_6X6 = 0.2904       # RESULTS.md round-4 sector measurement

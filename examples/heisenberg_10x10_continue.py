@@ -1,17 +1,18 @@
 """10x10 continuation: warm-start the 150-epoch artifact, anneal to <5e-4.
 
-Saves the artifact periodically so relay stalls cannot lose progress.
+Saves the artifact periodically so an interrupted run keeps its progress.
 """
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import time, functools, numpy as np, jax, jax.numpy as jnp
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS, common
-from cgs_vmc_tpu.sampler import metropolis
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS, common
+from cgs_vmc_jax.sampler import metropolis
 
 OUT = 'artifacts/heisenberg_10x10_symconv_v2.msgpack'
 cfg = Config(num_sites=100, size_x=10, size_y=10,
@@ -31,7 +32,7 @@ wf = build_wavefunction(cfg)
 ham = HeisenbergHamiltonian(bonds, -1.0, 1.0)
 opt = GROUND_STATE_OPTIMIZERS['SR'](wf, ham, cfg)
 state = opt.init_state(jax.random.key(cfg.seed))
-params = serialization.from_bytes(
+params = codec.from_bytes(
     state.params, open('artifacts/heisenberg_10x10_symconv_150ep.msgpack',
                        'rb').read())
 opt_state, epoch_ct, smp = state.opt_state, state.epoch, state.sampler
@@ -86,16 +87,16 @@ for i in range(800):
               f'res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
     if i % 50 == 49:
         with open(OUT, 'wb') as f:
-            f.write(serialization.to_bytes(jax.device_get(params)))
+            f.write(codec.to_bytes(jax.device_get(params)))
         print(f'  saved {OUT} @ epoch {i+1}', flush=True)
 
 with open(OUT, 'wb') as f:
-    f.write(serialization.to_bytes(jax.device_get(params)))
+    f.write(codec.to_bytes(jax.device_get(params)))
 
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.evaluate import evaluate_operator
 # Chunked Hamiltonian for the big-batch final eval: the symmetrized
-# orbit multiplies the connected-config fan-out; unchunked it OOMs HBM
-# and crashes the TPU worker.
+# orbit multiplies the connected-config fan-out; unchunked it can exceed
+# device memory.
 ham = HeisenbergHamiltonian(bonds, -1.0, 1.0, sample_chunk=128)
 cfg_eval = cfg.replace(num_evaluation_samples=400, num_monte_carlo_sweeps=2,
                        batch_size=1024)

@@ -6,15 +6,16 @@ broke the 5-layer floor (7x48 reached 7e-5).  This trains the 7-layer
 the saved artifact regardless of where the run is cut off."""
 
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import time, functools, numpy as np, jax, jax.numpy as jnp
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS, common
-from cgs_vmc_tpu.sampler import metropolis
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS, common
+from cgs_vmc_jax.sampler import metropolis
 
 OUT = 'artifacts/heisenberg_10x10_deep32.msgpack'
 cfg = Config(num_sites=100, size_x=10, size_y=10,
@@ -88,16 +89,16 @@ for i in range(1400):
               f'res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
     if i % 50 == 49:
         with open(OUT, 'wb') as f:
-            f.write(serialization.to_bytes(jax.device_get(params)))
+            f.write(codec.to_bytes(jax.device_get(params)))
         print(f'  saved {OUT} @ epoch {i+1}', flush=True)
 
 with open(OUT, 'wb') as f:
-    f.write(serialization.to_bytes(jax.device_get(params)))
+    f.write(codec.to_bytes(jax.device_get(params)))
 
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.evaluate import evaluate_operator
 # Chunked Hamiltonian for the big-batch final eval: the symmetrized
-# orbit multiplies the connected-config fan-out; unchunked it OOMs HBM
-# and crashes the TPU worker.
+# orbit multiplies the connected-config fan-out; unchunked it can exceed
+# device memory.
 ham = HeisenbergHamiltonian(bonds, -1.0, 1.0, sample_chunk=128)
 cfg_eval = cfg.replace(num_evaluation_samples=400, num_monte_carlo_sweeps=2,
                        batch_size=1024)

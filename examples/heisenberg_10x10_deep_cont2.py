@@ -1,24 +1,23 @@
 """Deep 10x10 continuation, stage 2: resume the 7x32 anneal at epoch 350.
 
-Round-2's continuation (examples/heisenberg_10x10_deep_cont.py) was cut by
-relay stalls at epoch ~350 of its 1400-epoch lr 0.01/0.004/0.0015 schedule;
+Round-2's continuation (examples/heisenberg_10x10_deep_cont.py) stopped
+at epoch ~350 of its 1400-epoch lr 0.01/0.004/0.0015 schedule;
 the epoch-350 params live in artifacts/heisenberg_10x10_deep32_cont.msgpack.
 This resumes THAT artifact at the correct schedule position (epoch counter
 350) and runs the remaining anneal stages with periodic saves.  No final
-eval here — the split-program evaluator (examples/eval_10x10_splitprog.py
-with --layers 7) is run separately so a relay-worker crash can never eat
-the trained weights."""
+eval here — `cgs eval --params` runs separately on the saved weights."""
 
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import time, functools, numpy as np, jax, jax.numpy as jnp
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS, common
-from cgs_vmc_tpu.sampler import metropolis
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS, common
+from cgs_vmc_jax.sampler import metropolis
 
 IN = 'artifacts/heisenberg_10x10_deep32_cont.msgpack'
 OUT = 'artifacts/heisenberg_10x10_deep32_cont.msgpack'
@@ -42,7 +41,7 @@ wf = build_wavefunction(cfg)
 ham = HeisenbergHamiltonian(bonds, -1.0, 1.0)
 opt = GROUND_STATE_OPTIMIZERS['SR'](wf, ham, cfg)
 state = opt.init_state(jax.random.key(cfg.seed))
-params = serialization.from_bytes(state.params, open(IN, 'rb').read())
+params = codec.from_bytes(state.params, open(IN, 'rb').read())
 opt_state, smp = state.opt_state, state.sampler
 epoch_ct = jnp.asarray(START_EPOCH, dtype=state.epoch.dtype)
 
@@ -98,10 +97,10 @@ for i in range(START_EPOCH, END_EPOCH):
               f'res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
     if i % 50 == 49:
         with open(OUT, 'wb') as f:
-            f.write(serialization.to_bytes(jax.device_get(params)))
+            f.write(codec.to_bytes(jax.device_get(params)))
         print(f'  saved {OUT} @ epoch {i+1}', flush=True)
 
 with open(OUT, 'wb') as f:
-    f.write(serialization.to_bytes(jax.device_get(params)))
-print(f'DONE: saved {OUT} @ epoch {END_EPOCH}; run '
-      f'examples/eval_10x10_splitprog.py for the MC eval', flush=True)
+    f.write(codec.to_bytes(jax.device_get(params)))
+print(f'DONE: saved {OUT} @ epoch {END_EPOCH}; MC eval: '
+      f'cgs eval --params {OUT} (see examples/README.md)', flush=True)

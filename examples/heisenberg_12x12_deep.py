@@ -4,26 +4,27 @@ The 5x32 12x12 result (examples/heisenberg_12x12_sr.py) floors at
 8.25e-4 — the same 5-layer architecture floor seen at 6x6 (1e-3) and
 10x10 (6.7e-4).  Depth broke that floor at both smaller lattices
 (7x48 -> 7.05e-5 at 6x6; 7x32 -> 2.55e-4 at 10x10), so this trains the
-7-layer 12x12 from scratch with the sample_cg solver and the MXU-native
+7-layer 12x12 from scratch with the sample_cg solver and the batched-GEMM
 fast-Jacobian rows.  Periodic saves; resumable:
 
   python examples/heisenberg_12x12_deep.py [--resume START_EPOCH]
 
 QMC reference E/N = -0.670685 (Sandvik 1997 finite-size).  Final MC
-eval runs separately: python examples/eval_splitprog.py \
-    artifacts/heisenberg_12x12_deep32.msgpack 12 12 7 32
+eval runs separately: cgs eval --params \
+    artifacts/heisenberg_12x12_deep32.msgpack (see examples/README.md)
 """
 
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import sys, time, functools, numpy as np, jax, jax.numpy as jnp
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-from cgs_vmc_tpu.sampler import metropolis
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+from cgs_vmc_jax.sampler import metropolis
 
 OUT = 'artifacts/heisenberg_12x12_deep32.msgpack'
 RESUME = len(sys.argv) > 1 and sys.argv[1] == '--resume'
@@ -39,13 +40,12 @@ cfg = Config(num_sites=N, size_x=12, size_y=12,
              learning_rate_stops=[300, 700, 1100],
              optimizer='gradient', heisenberg_jx=-1.0,
              # chunk 256 bounds the vmap(grad) backward activation memory
-             # (x16 symmetry orbit) to a comfortable HBM slice at N=144.
+             # (x16 symmetry orbit) to a comfortable device-memory slice at N=144.
              sr_diag_shift=1e-2, sr_solver='sample_cg', sr_delta_clip=1.0,
              sr_reject_residual=0.5, sr_jacobian_chunk=256,
              sr_cg_tol=1e-5, sr_cg_maxiter=200,
-             # Round-4 hardware verdict: vmap(grad) rows beat the im2col
-             # fast path ~4x inside the epoch (profile_sr_epoch5) — default
-             # off; CGS_FASTJAC=1 re-enables for experiments.
+             # vmap(grad) rows are the default (config.sr_fast_jacobian);
+             # CGS_FASTJAC=1 re-enables the im2col path for experiments.
              sr_fast_jacobian=bool(int(os.environ.get('CGS_FASTJAC', '0'))),
              symmetrize=True, seed=41)
 END = 1400
@@ -56,7 +56,7 @@ opt = GROUND_STATE_OPTIMIZERS['SR'](wf, ham, cfg)
 state = opt.init_state(jax.random.key(cfg.seed))
 params, opt_state, smp = state.params, state.opt_state, state.sampler
 if RESUME:
-    params = serialization.from_bytes(params, open(OUT, 'rb').read())
+    params = codec.from_bytes(params, open(OUT, 'rb').read())
 epoch_ct = jnp.asarray(START, dtype=state.epoch.dtype)
 
 @functools.partial(jax.jit, static_argnums=2)
@@ -97,10 +97,9 @@ for i in range(START, END):
               f'res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
     if i % 50 == 49:
         with open(OUT, 'wb') as f:
-            f.write(serialization.to_bytes(jax.device_get(params)))
+            f.write(codec.to_bytes(jax.device_get(params)))
         print(f'  saved {OUT} @ epoch {i+1}', flush=True)
 
 with open(OUT, 'wb') as f:
-    f.write(serialization.to_bytes(jax.device_get(params)))
-print(f'DONE @ epoch {END}; eval: python examples/eval_splitprog.py '
-      f'{OUT} 12 12 7 32', flush=True)
+    f.write(codec.to_bytes(jax.device_get(params)))
+print(f'DONE @ epoch {END}; eval: cgs eval --params {OUT}', flush=True)

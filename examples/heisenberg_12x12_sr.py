@@ -4,20 +4,21 @@ Beyond every reference configuration AND beyond round 2's largest lattice:
 144 sites, 288 bonds, symmetrized 5x32 conv, trained with the sample_cg
 solver — the path built for lattices whose Jacobian cannot be gathered —
 in the same split-program, periodically-saving, resumable style as the
-10x10 scripts (relay stalls cannot eat progress).  QMC reference
+10x10 scripts (an interrupted run keeps its progress).  QMC reference
 E/N = -0.670685 (Sandvik 1997 finite-size).  Final MC eval runs
-separately via examples/eval_splitprog.py ... 12 12 5 32."""
+separately via cgs eval --params (see examples/README.md)."""
 
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import sys, time, functools, numpy as np, jax, jax.numpy as jnp
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS, common
-from cgs_vmc_tpu.sampler import metropolis
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS, common
+from cgs_vmc_jax.sampler import metropolis
 
 OUT = 'artifacts/heisenberg_12x12_symconv.msgpack'
 RESUME = len(sys.argv) > 1 and sys.argv[1] == '--resume'
@@ -44,7 +45,7 @@ opt = GROUND_STATE_OPTIMIZERS['SR'](wf, ham, cfg)
 state = opt.init_state(jax.random.key(cfg.seed))
 params, opt_state, smp = state.params, state.opt_state, state.sampler
 if RESUME:
-    params = serialization.from_bytes(params, open(OUT, 'rb').read())
+    params = codec.from_bytes(params, open(OUT, 'rb').read())
 epoch_ct = jnp.asarray(START, dtype=state.epoch.dtype)
 
 @functools.partial(jax.jit, static_argnums=2)
@@ -98,10 +99,9 @@ for i in range(START, END):
               f'res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
     if i % 50 == 49:
         with open(OUT, 'wb') as f:
-            f.write(serialization.to_bytes(jax.device_get(params)))
+            f.write(codec.to_bytes(jax.device_get(params)))
         print(f'  saved {OUT} @ epoch {i+1}', flush=True)
 
 with open(OUT, 'wb') as f:
-    f.write(serialization.to_bytes(jax.device_get(params)))
-print(f'DONE @ epoch {END}; eval: python examples/eval_splitprog.py '
-      f'{OUT} 12 12 5 32', flush=True)
+    f.write(codec.to_bytes(jax.device_get(params)))
+print(f'DONE @ epoch {END}; eval: cgs eval --params {OUT}', flush=True)

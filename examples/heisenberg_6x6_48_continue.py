@@ -2,18 +2,19 @@
 
 Warm-starts from artifacts/heisenberg_6x6_symconv48.msgpack (the wider
 round-1 model; the 5x32 architecture saturates near 1.7e-4) and anneals
-at M=8192 with a finer LR schedule.  Saves periodically so relay stalls
+at M=8192 with a finer LR schedule.  Saves periodically so an interruption
 cannot lose progress."""
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import time, functools, numpy as np, jax, jax.numpy as jnp
-from flax import serialization
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS, common
-from cgs_vmc_tpu.sampler import metropolis
+from cgs_vmc_jax.utils import codec
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS, common
+from cgs_vmc_jax.sampler import metropolis
 
 OUT = "artifacts/heisenberg_6x6_symconv48_v2.msgpack"
 cfg = Config(num_sites=36, size_x=6, size_y=6,
@@ -33,7 +34,7 @@ wf = build_wavefunction(cfg)
 ham = HeisenbergHamiltonian(bonds, -1.0, 1.0)
 opt = GROUND_STATE_OPTIMIZERS['SR'](wf, ham, cfg)
 state = opt.init_state(jax.random.key(cfg.seed))
-params = serialization.from_bytes(
+params = codec.from_bytes(
     state.params, open('artifacts/heisenberg_6x6_symconv48.msgpack',
                        'rb').read())
 opt_state, epoch_ct, smp = state.opt_state, state.epoch, state.sampler
@@ -88,16 +89,16 @@ for i in range(1000):
               f'res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
     if i % 50 == 49:
         with open(OUT, 'wb') as f:
-            f.write(serialization.to_bytes(jax.device_get(params)))
+            f.write(codec.to_bytes(jax.device_get(params)))
         print(f'  saved {OUT} @ epoch {i+1}', flush=True)
 
 with open(OUT, 'wb') as f:
-    f.write(serialization.to_bytes(jax.device_get(params)))
+    f.write(codec.to_bytes(jax.device_get(params)))
 
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.evaluate import evaluate_operator
 # Chunked Hamiltonian for the big-batch final eval: the symmetrized
-# orbit multiplies the connected-config fan-out; unchunked it OOMs HBM
-# and crashes the TPU worker.
+# orbit multiplies the connected-config fan-out; unchunked it can exceed
+# device memory.
 ham = HeisenbergHamiltonian(bonds, -1.0, 1.0, sample_chunk=128)
 cfg_eval = cfg.replace(num_evaluation_samples=600, num_monte_carlo_sweeps=2,
                        batch_size=2048)

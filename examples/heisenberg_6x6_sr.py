@@ -1,6 +1,6 @@
 """Headline benchmark: 6x6 AFM Heisenberg to 2.3e-4 of the QMC reference.
 
-Reproduces RESULTS.md row #4 on a single TPU chip (~10 minutes):
+Reproduces RESULTS.md row #4 on one GPU:
 symmetrized conv-CGS (5x32, C4v x spin-flip projection) + dense
 sample-space SR.  Final MC eval: E/N = -0.678717 vs QMC -0.678872.
 
@@ -9,14 +9,15 @@ Uses split compiled programs (sweeps / local energy / SR update) so each
 path works too but compiles one large epoch program.
 """
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import time, functools, numpy as np, jax, jax.numpy as jnp
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-from cgs_vmc_tpu.sampler import metropolis
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+from cgs_vmc_jax.sampler import metropolis
 
 cfg = Config(num_sites=36, size_x=6, size_y=6,
              wavefunction_type='conv_2d', num_conv_layers=5,
@@ -57,7 +58,7 @@ def sr_update(params, opt_state, epoch, all_configs, e_loc):
     finite = jnp.all(jnp.asarray(
         [jnp.all(jnp.isfinite(l)) for l in jax.tree.leaves(delta)]))
     delta = jax.tree.map(lambda d, g: jnp.where(finite, d, g), delta, grad_e)
-    from cgs_vmc_tpu.optim import common
+    from cgs_vmc_jax.optim import common
     ok = jnp.logical_or(jnp.logical_not(finite),
                         res < cfg.sr_reject_residual *
                         (common.grad_global_norm(grad_e) + 1e-12))
@@ -91,7 +92,7 @@ for i in range(700):
               f'res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
 
 # Final evaluation with more samples.
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.evaluate import evaluate_operator
 cfg_eval = cfg.replace(num_evaluation_samples=300, num_monte_carlo_sweeps=2)
 res = evaluate_operator(wf, params, ham, cfg_eval, key=jax.random.key(99),
                         state=smp)

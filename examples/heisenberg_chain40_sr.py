@@ -1,19 +1,20 @@
 """Benchmark config #2: 1-D Heisenberg chain N=40, RBM + dense SR.
 
-Reproduces RESULTS.md row #2 on a single TPU chip (~100 seconds):
+Reproduces RESULTS.md row #2 on one GPU:
 pure RBM (fused Pallas sampler) reaches E/N = -0.443602 vs the Bethe
 finite-size estimate -0.44366 (rel err ~1.3e-4).
 """
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR', '/root/.cache/jax_comp')
 import time, numpy as np, jax, jax.numpy as jnp
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-from cgs_vmc_tpu.sampler import metropolis
-from cgs_vmc_tpu.optim import common as optcommon
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+from cgs_vmc_jax.sampler import metropolis
+from cgs_vmc_jax.optim import common as optcommon
 
 cfg = Config(num_sites=40, wavefunction_type='rbm', num_fc_layers=0,
              fc_layer_size=160, wavefunction_optimizer_type='SR',
@@ -74,6 +75,6 @@ for i in range(800):
     if i % 25 == 24:
         e = float(jnp.mean(e_loc))
         print(f'ep{i+1}: E={e:.4f} E/N={e/40:.6f} res={float(res):.3f} t={time.time()-t0:.0f}s', flush=True)
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.evaluate import evaluate_operator
 res = evaluate_operator(wf, params, ham, cfg.replace(num_evaluation_samples=300), key=jax.random.key(9), state=smp)
 print(f'FINAL: E={res.mean:.5f} +/- {res.error:.5f} E/N={res.mean/40:.6f} (exact N=40 ~ -0.44386)', flush=True)

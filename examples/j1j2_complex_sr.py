@@ -4,19 +4,19 @@ The Majumdar-Ghosh point (J2/J1 = 1/2) has an exactly known ground
 energy E0 = -3N/8; no Marshall gauge exists at generic J2, so a
 positive ansatz cannot represent the sign structure — the complex
 phase network learns it instead.  Runs on CPU in ~1 minute (N=8) or
-any TPU chip; scale N / the networks up from here.
+one GPU; scale N / the networks up from here.
 """
 import os
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      os.path.expanduser('~/.cache/jax_comp'))
 import numpy as np
 import jax
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim.sr import StochasticReconfiguration
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim.sr import StochasticReconfiguration
 
 N = 8
 J2 = 0.5

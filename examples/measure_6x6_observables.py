@@ -5,25 +5,25 @@ energy, S(q) across the Brillouin zone (peak at the AFM ordering vector
 (pi, pi)), staggered magnetization, longitudinal + transverse
 correlators, and Renyi-2 entanglement of a 6-site strip.
 
-Runs anywhere (CPU ~minutes, TPU seconds):
-  PYTHONPATH=/root/repo python examples/measure_6x6_observables.py
+Runs on the CPU or the GPU:
+  PYTHONPATH=. python examples/measure_6x6_observables.py
 """
 import os, sys
-os.environ.setdefault('JAX_COMPILATION_CACHE_DIR',
-                      os.path.expanduser('~/.cache/jax_comp'))
 import numpy as np
 import jax
-from flax import serialization
+from cgs_vmc_jax.utils import compile_cache
+compile_cache.configure()
+from cgs_vmc_jax.utils import codec
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.ops.observables import (
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.ops.observables import (
     SpinStructureFactor, SzSzCorrelation, StaggeredMagnetizationSquared,
     TransverseCorrelation, square_positions)
-from cgs_vmc_tpu.ops.renyi import evaluate_renyi2
-from cgs_vmc_tpu.evaluate import evaluate_operator
+from cgs_vmc_jax.ops.renyi import evaluate_renyi2
+from cgs_vmc_jax.evaluate import evaluate_operator
 
 path = sys.argv[1] if len(sys.argv) > 1 else \
     'artifacts/heisenberg_6x6_symconv_v2.msgpack'
@@ -37,7 +37,7 @@ cfg = Config(num_sites=36, size_x=6, size_y=6,
              num_monte_carlo_sweeps=2, num_evaluation_samples=100,
              energy_chunk_samples=64, seed=55)
 wf = build_wavefunction(cfg)
-params = serialization.from_bytes(
+params = codec.from_bytes(
     wf.init(jax.random.key(0)), open(path, 'rb').read())
 pos = square_positions(6, 6)
 

@@ -10,8 +10,8 @@ bipartite AFM chain the first excitation is a triplet, so
 must land on the SAME energy — the Sz=±1,0 components of one triplet —
 and both are pinned against sector ED here (N=16: dim 12870 / 11440).
 
-CPU-friendly (runs in a few minutes; no TPU required):
-  JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python examples/spin_gap_chain16.py
+CPU-friendly (runs in a few minutes on the CPU):
+  JAX_PLATFORMS=cpu PYTHONPATH=. python examples/spin_gap_chain16.py
 """
 
 import os
@@ -23,13 +23,13 @@ import jax
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-from cgs_vmc_tpu.optim.excited import PenaltyExcitedOptimizer
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+from cgs_vmc_jax.optim.excited import PenaltyExcitedOptimizer
+from cgs_vmc_jax.utils import ed
 
 N = 16
 JX = -1.0

@@ -17,7 +17,7 @@ os.environ['XLA_FLAGS'] = (
     os.environ.get('XLA_FLAGS', '')
     + ' --xla_force_host_platform_device_count=2').strip()
 
-from cgs_vmc_tpu.parallel import mesh as mesh_lib  # noqa: E402
+from cgs_vmc_jax.parallel import mesh as mesh_lib  # noqa: E402
 
 idx = mesh_lib.initialize_distributed(
     coordinator_address=coordinator, num_processes=2, process_id=proc_id)

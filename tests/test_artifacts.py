@@ -17,12 +17,12 @@ import os
 import numpy as np
 import jax
 import pytest
-from flax import serialization
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.utils import codec
 
 ARTIFACT_DIR = os.path.join(os.path.dirname(__file__), '..', 'artifacts')
 
@@ -79,8 +79,8 @@ def _local_energies(name, config, size, n_configs):
     n = config.num_sites
     wf = build_wavefunction(config)
     path = os.path.join(ARTIFACT_DIR, f'{name}.msgpack')
-    params = serialization.from_bytes(wf.init(jax.random.key(0)),
-                                      open(path, 'rb').read())
+    params = codec.from_bytes(wf.init(jax.random.key(0)),
+                              open(path, 'rb').read())
     ham = HeisenbergHamiltonian(
         lattice.square_lattice_bonds(*size), -1.0, 1.0)
     configs = basis.random_configurations(jax.random.key(1234), n, n_configs)

@@ -11,11 +11,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.models.autoregressive import AutoregressiveSpinModel
-from cgs_vmc_tpu.sampler import fast_ar, metropolis, registry
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.models.autoregressive import AutoregressiveSpinModel
+from cgs_vmc_jax.sampler import fast_ar, metropolis, registry
 
 N = 8
 
@@ -114,9 +114,9 @@ def test_made_trains_mcmc_free():
     """SR on the Marshall-gauged N=8 chain with exact sampling: every
     epoch's samples are i.i.d. from |psi|^2; energy descends to within
     a few % of ED."""
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.utils import ed
 
     cfg = Config(num_sites=N, wavefunction_type='made',
                  num_fc_layers=1, fc_layer_size=32,
@@ -154,8 +154,8 @@ def test_complex_made_modulus_exact_sampling_frustrated():
     (adam is the robust optimizer for this composite: measured rel err
     6-8e-4 across seeds at 400 epochs, where minSR sits on a chaotic
     mode-collapse boundary for the normalized AR modulus.)"""
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
 
     n = 8
     cfg = Config(
@@ -216,7 +216,7 @@ def test_ar_zero_sweeps_still_redraws():
 # properties but the masks are new code.
 
 def _setup_pixelcnn(seed=0, sx=4, sy=2, layers=2, filters=6):
-    from cgs_vmc_tpu.models.pixelcnn import MaskedConv2DAutoregressive
+    from cgs_vmc_jax.models.pixelcnn import MaskedConv2DAutoregressive
     wf = MaskedConv2DAutoregressive(sx, sy, num_layers=layers,
                                     num_filters=filters, kernel_size=3)
     params = wf.init(jax.random.key(seed))
@@ -277,9 +277,9 @@ def test_pixelcnn_sampling_and_dispatch():
 @pytest.mark.slow
 def test_pixelcnn_trains_on_4x4():
     """MCMC-free SR on the Marshall-gauged 4x4 square lattice."""
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.utils import ed
 
     cfg = Config(num_sites=16, size_x=4, size_y=4,
                  wavefunction_type='pixelcnn', num_conv_layers=3,

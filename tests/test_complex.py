@@ -11,17 +11,17 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import FullVector, build_wavefunction
-from cgs_vmc_tpu.models.complex_phase import ComplexPhaseWavefunction, is_complex
-from cgs_vmc_tpu.ops import logamp
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import common
-from cgs_vmc_tpu.optim.energy_gradient import EnergyGradientOptimizer
-from cgs_vmc_tpu.optim.sr import StochasticReconfiguration
-from cgs_vmc_tpu.sampler import metropolis
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import FullVector, build_wavefunction
+from cgs_vmc_jax.models.complex_phase import ComplexPhaseWavefunction, is_complex
+from cgs_vmc_jax.ops import logamp
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import common
+from cgs_vmc_jax.optim.energy_gradient import EnergyGradientOptimizer
+from cgs_vmc_jax.optim.sr import StochasticReconfiguration
+from cgs_vmc_jax.sampler import metropolis
+from cgs_vmc_jax.utils import ed
 
 N = 8
 
@@ -108,7 +108,7 @@ def test_symmetrized_complex_wavefunction():
     """Symmetry projection composes with complex logs: the orbit average
     runs through the complex branch of logamp.sum_terms and stays
     invariant under the group (spin flip here)."""
-    from cgs_vmc_tpu.models import build_wavefunction
+    from cgs_vmc_jax.models import build_wavefunction
     config = Config(num_sites=16, size_x=4, size_y=4,
                     wavefunction_type='complex',
                     composite_wavefunction_types=('fully_connected',
@@ -134,7 +134,7 @@ def test_symmetrized_complex_wavefunction():
 def test_complex_conv_ansatz_and_mtm():
     """'complex' composites work with conv parts; MTM samples them
     (acceptance uses Re log, cache stays complex and consistent)."""
-    from cgs_vmc_tpu.sampler import metropolis, mtm
+    from cgs_vmc_jax.sampler import metropolis, mtm
     config = Config(num_sites=16, size_x=4, size_y=4,
                     wavefunction_type='complex',
                     composite_wavefunction_types=('conv_2d', 'conv_2d'),
@@ -154,7 +154,7 @@ def test_complex_conv_ansatz_and_mtm():
 def test_complex_evaluators():
     """evaluate_operator / exact_expectation / evaluate_vector /
     overlap_with_vector all handle complex amplitudes."""
-    from cgs_vmc_tpu.evaluate import (
+    from cgs_vmc_jax.evaluate import (
         evaluate_operator, exact_expectation, evaluate_vector,
         overlap_with_vector)
     bonds, couplings = _j1j2(0.4)
@@ -188,7 +188,7 @@ def test_complex_evaluators():
 
 def test_complex_vector_dump_format(tmp_path):
     """The (re,im) text dump round-trips the complex amplitudes."""
-    from cgs_vmc_tpu.evaluate import evaluate_vector
+    from cgs_vmc_jax.evaluate import evaluate_vector
     wf, params, psi = _exact_complex_state(seed=5)
     config = Config(num_sites=N, batch_size=64)
     out = str(tmp_path / 'wavefunction_epoch_0.txt')
@@ -248,8 +248,8 @@ def test_complex_gradient_formula_vs_rayleigh_autodiff():
 def test_complex_log_overlap_distillation():
     """LogOverlapSWO distills a complex target into a complex student:
     |<psi_t|psi>| fidelity rises toward 1."""
-    from cgs_vmc_tpu.evaluate import evaluate_vector, overlap_with_vector
-    from cgs_vmc_tpu.optim.swo import LogOverlapSWO
+    from cgs_vmc_jax.evaluate import evaluate_vector, overlap_with_vector
+    from cgs_vmc_jax.optim.swo import LogOverlapSWO
 
     target_wf, target_params, psi_t = _exact_complex_state(seed=6)
     config = Config(num_sites=N, wavefunction_type='complex',
@@ -280,7 +280,7 @@ def test_complex_log_overlap_distillation():
 def test_complex_log_overlap_itswo_descends():
     """LogOverlapITSWO (imaginary-time log-overlap) lowers the energy of
     a complex ansatz on the frustrated chain."""
-    from cgs_vmc_tpu.optim.swo import LogOverlapImaginaryTimeSWO
+    from cgs_vmc_jax.optim.swo import LogOverlapImaginaryTimeSWO
     config = Config(num_sites=N, wavefunction_type='complex',
                     composite_wavefunction_types=('fully_connected',
                                                   'fully_connected'),
@@ -370,8 +370,8 @@ def test_complex_l2_distillation(opt_name):
     COMPLEX logs: |residual|² losses distill a complex ED-style target into
     a complex student to high fidelity (round-1 gap: these losses squared
     real residuals and silently mishandled complex-log ansatzes)."""
-    from cgs_vmc_tpu.evaluate import evaluate_vector, overlap_with_vector
-    from cgs_vmc_tpu.optim import SUPERVISED_OPTIMIZERS
+    from cgs_vmc_jax.evaluate import evaluate_vector, overlap_with_vector
+    from cgs_vmc_jax.optim import SUPERVISED_OPTIMIZERS
 
     target_wf, target_params, psi_t = _exact_complex_state(seed=23)
     config = Config(num_sites=N, wavefunction_type='complex',
@@ -403,7 +403,7 @@ def test_complex_l2_distillation(opt_name):
 def test_complex_itswo_descends():
     """The default ITSWO optimizer (L2 loss + EMA normalization) with a
     complex-log ansatz lowers the frustrated-chain energy (round-1 gap)."""
-    from cgs_vmc_tpu.optim.swo import ImaginaryTimeSWO
+    from cgs_vmc_jax.optim.swo import ImaginaryTimeSWO
     config = Config(num_sites=N, wavefunction_type='complex',
                     composite_wavefunction_types=('fully_connected',
                                                   'fully_connected'),

@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config, parse_overrides
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import EnergyGradientOptimizer
-from cgs_vmc_tpu.utils import checkpoint as ckpt_lib
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config, parse_overrides
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import EnergyGradientOptimizer
+from cgs_vmc_jax.utils import checkpoint as ckpt_lib
 
 
 def test_config_json_roundtrip(tmp_path):
@@ -151,7 +151,7 @@ def test_epoch_keyed_lr_schedule():
     """Piecewise-constant LR keyed on the EPOCH counter regardless of
     update cadence (reference training.py:86-91)."""
     import jax.numpy as jnp
-    from cgs_vmc_tpu.optim.common import make_optax_optimizer
+    from cgs_vmc_jax.optim.common import make_optax_optimizer
 
     config = Config(learning_rates=[1e-3, 1e-4, 2e-5, 1e-5],
                     learning_rate_stops=[300, 600, 1000])
@@ -165,6 +165,6 @@ def test_epoch_keyed_lr_schedule():
 
 def test_lr_schedule_validation():
     with pytest.raises(ValueError, match='one more entry'):
-        from cgs_vmc_tpu.optim.common import make_optax_optimizer
+        from cgs_vmc_jax.optim.common import make_optax_optimizer
         make_optax_optimizer(Config(learning_rates=[1e-3],
                                     learning_rate_stops=[10]))

@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import scipy.linalg
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.models import FullVector
-from cgs_vmc_tpu.models.complex_phase import ComplexPhaseWavefunction
-from cgs_vmc_tpu.ops import dynamics, logamp
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.ops.observables import chain_positions
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.models import FullVector
+from cgs_vmc_jax.models.complex_phase import ComplexPhaseWavefunction
+from cgs_vmc_jax.ops import dynamics, logamp
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.ops.observables import chain_positions
+from cgs_vmc_jax.utils import ed
 
 N = 6
 
@@ -143,7 +143,7 @@ def test_spectral_peak_at_excitation_energy():
 def test_sampled_linear_response_runs():
     """MC path smoke + consistency: sampled C(t) tracks the dense answer
     within MC noise on a short window."""
-    from cgs_vmc_tpu.config import Config
+    from cgs_vmc_jax.config import Config
     dense, ham = _setup()
     vals, vecs = np.linalg.eigh(dense)
     v0 = vecs[:, 0]
@@ -177,7 +177,7 @@ def test_cli_evolve_linear_response(tmp_path, capsys):
     """`cgs evolve --linear_response` end-to-end on a tiny complex
     ansatz: writes (t, C(t)) + S(q, omega) and prints the peak."""
     import json as json_lib
-    from cgs_vmc_tpu.cli import main as cli_main
+    from cgs_vmc_jax.cli import main as cli_main
     run_dir = str(tmp_path / 'lr_run')
     rc = cli_main([
         'train', '--checkpoint_dir', run_dir,

@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.train import train
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.train import train
 
 N = 8
 

@@ -4,17 +4,17 @@ import numpy as np
 import jax
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.evaluate import (
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.evaluate import (
     binned_error,
     evaluate_operator,
     evaluate_vector,
     overlap_with_vector,
 )
-from cgs_vmc_tpu.models import FullVector
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax.models import FullVector
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.utils import ed
 
 N = 8
 BONDS = lattice.chain_bonds(N)
@@ -82,7 +82,7 @@ def test_evaluate_vector_and_overlap(tmp_path):
 
 @pytest.mark.slow
 def test_exact_expectation_matches_ed():
-    from cgs_vmc_tpu.evaluate import exact_expectation
+    from cgs_vmc_jax.evaluate import exact_expectation
     wf, params = _exact_wf()
     ham = HeisenbergHamiltonian(BONDS)
     value = exact_expectation(wf, params, ham, N, batch=16)

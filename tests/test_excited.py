@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import FullVector, build_wavefunction
-from cgs_vmc_tpu.models.complex_phase import ComplexPhaseWavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-from cgs_vmc_tpu.optim.excited import PenaltyExcitedOptimizer
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import FullVector, build_wavefunction
+from cgs_vmc_jax.models.complex_phase import ComplexPhaseWavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+from cgs_vmc_jax.optim.excited import PenaltyExcitedOptimizer
+from cgs_vmc_jax.utils import ed
 
 N = 8
 JX = -1.0
@@ -159,7 +159,7 @@ def test_complex_path_overlap_exact():
 def test_excited_pipeline_from_run_dir(tmp_path):
     """End-to-end: train a tiny ground-state run, then an ExcitedPenalty
     run orthogonalized against that run directory (the CLI path)."""
-    from cgs_vmc_tpu.train import train
+    from cgs_vmc_jax.train import train
 
     ground_dir = str(tmp_path / 'ground')
     g_config = _config(
@@ -191,7 +191,7 @@ def test_excited_pipeline_from_run_dir(tmp_path):
 # minSR as an effective local value E_loc + lambda*(F/A)*r.
 
 def test_sr_excited_overlap_exact_for_identical_states():
-    from cgs_vmc_tpu.optim.excited import SRPenaltyExcitedOptimizer
+    from cgs_vmc_jax.optim.excited import SRPenaltyExcitedOptimizer
     wf0, params0 = _vector_state(V0)
     wf, _ = _vector_state(V0)
     config = _config(sr_diag_shift=1e-2)
@@ -207,7 +207,7 @@ def test_sr_excited_overlap_exact_for_identical_states():
 def test_sr_excited_converges_to_first_excited():
     """Natural-gradient penalty descent: same target as the adam path but
     through the SR solve — converges in far fewer epochs."""
-    from cgs_vmc_tpu.optim.excited import SRPenaltyExcitedOptimizer
+    from cgs_vmc_jax.optim.excited import SRPenaltyExcitedOptimizer
     rng = np.random.default_rng(8)
     init = rng.normal(size=V0.shape) * 0.3 + V1  # warmish start (as adam)
     wf0, params0 = _vector_state(V0)
@@ -236,7 +236,7 @@ def test_sr_excited_converges_to_first_excited():
 
 
 def test_sr_excited_registry_and_requirements():
-    from cgs_vmc_tpu.optim.excited import SRPenaltyExcitedOptimizer
+    from cgs_vmc_jax.optim.excited import SRPenaltyExcitedOptimizer
     assert GROUND_STATE_OPTIMIZERS['ExcitedSR'] is SRPenaltyExcitedOptimizer
     config = _config(wavefunction_type='rbm', fc_layer_size=8)
     wf = build_wavefunction(config)
@@ -250,7 +250,7 @@ def test_sr_excited_second_state_with_two_lower_states():
     pinned to the second-excited shelf (between the E1/E2 and E2/E3
     midpoints — convergence onto E2 itself is slow near the end, but the
     level selection is unambiguous)."""
-    from cgs_vmc_tpu.optim.excited import SRPenaltyExcitedOptimizer
+    from cgs_vmc_jax.optim.excited import SRPenaltyExcitedOptimizer
     E2, E3 = float(_VALS[2]), float(_VALS[3])
     V2 = _VECS[:, 2]
     rng = np.random.default_rng(12)
@@ -282,8 +282,8 @@ def test_excited_sr_sharded_epoch_matches_oracle():
     """8-device mesh: the lower-state samplers (a LIST of SamplerStates in
     extra) shard on the chains axis, and the F==1 identical-state oracle
     holds under shard_map with pmean'd overlap moments."""
-    from cgs_vmc_tpu.optim.excited import SRPenaltyExcitedOptimizer
-    from cgs_vmc_tpu.parallel import mesh as mesh_lib
+    from cgs_vmc_jax.optim.excited import SRPenaltyExcitedOptimizer
+    from cgs_vmc_jax.parallel import mesh as mesh_lib
 
     n_dev = 8
     wf0, params0 = _vector_state(V0)
@@ -317,7 +317,7 @@ def test_penalty_force_identity_against_dense_autodiff():
     F = |<psi_k|psi>|^2 / (<psi_k|psi_k><psi|psi>) — complex ansatz,
     complex frozen state, machine precision."""
     import jax.flatten_util
-    from cgs_vmc_tpu import basis as basis_lib
+    from cgs_vmc_jax import basis as basis_lib
 
     n = 6
     states = jnp.asarray(basis_lib.enumerate_sz_basis(n))

@@ -14,12 +14,12 @@ import jax.flatten_util
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.optim import fast_jacobian
-from cgs_vmc_tpu.optim.sr import StochasticReconfiguration, _jacobian_rows
-from cgs_vmc_tpu.train import build_hamiltonian
+from cgs_vmc_jax import basis
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.optim import fast_jacobian
+from cgs_vmc_jax.optim.sr import StochasticReconfiguration, _jacobian_rows
+from cgs_vmc_jax.train import build_hamiltonian
 
 
 def _reference_rows(wf, params, configs, chunk):

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis
-from cgs_vmc_tpu.models.mps import MatrixProductState
-from cgs_vmc_tpu.sampler import fast_mps, metropolis
+from cgs_vmc_jax import basis
+from cgs_vmc_jax.models.mps import MatrixProductState
+from cgs_vmc_jax.sampler import fast_mps, metropolis
 
 N = 8
 D = 4
@@ -112,8 +112,8 @@ def test_fast_mps_samples_born_distribution():
 
 
 def test_dispatch_opt_in():
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu.optim import common
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax.optim import common
     wf, params, state = _setup(seed=9)
     cfg = Config(num_sites=N, wavefunction_type='mps', bond_dimension=D,
                  mps_incremental_sweeps=True)

@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis
-from cgs_vmc_tpu.models.determinant import ProjectedBDG
-from cgs_vmc_tpu.sampler import fast_pbdg, metropolis
+from cgs_vmc_jax import basis
+from cgs_vmc_jax.models.determinant import ProjectedBDG
+from cgs_vmc_jax.sampler import fast_pbdg, metropolis
 
 N = 8
 CHAINS = 64
@@ -110,8 +110,8 @@ def test_fast_pbdg_samples_born_distribution():
 
 
 def test_dispatch_selects_fast_pbdg():
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu.optim import common
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax.optim import common
     wf, params, state = _setup(seed=9)
     cfg = Config(num_sites=N, wavefunction_type='pbdg')
     sweeps = common.make_sweeps_fn(wf, cfg)
@@ -129,10 +129,10 @@ def test_pbdg_fast_path_trains_end_to_end():
     """EnergyGradient with the ProjectedBDG ansatz runs its epochs through
     the Sherman-Morrison sweeps (make_sweeps_fn dispatch) and descends."""
     import numpy as np
-    from cgs_vmc_tpu import lattice
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.optim.energy_gradient import EnergyGradientOptimizer
+    from cgs_vmc_jax import lattice
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.optim.energy_gradient import EnergyGradientOptimizer
 
     config = Config(num_sites=N, wavefunction_type='pbdg',
                     batch_size=128, num_batches_per_epoch=4,

@@ -1,7 +1,7 @@
 """CI pin of the flagship headline claim at ~1e-3 on CPU, no MCMC.
 
 The committed sample set (tests/data/flagship_6x6_deep48_samples.npy,
-512 int8 configurations) was drawn once on TPU from |psi|^2 of the
+512 int8 configurations) was drawn once from |psi|^2 of the
 6x6 deep48 artifact (RESULTS.md headline row, rel err 7.05e-5 vs QMC;
 examples/dump_flagship_pin_samples.py).  Re-evaluating the local energy
 over these FIXED configurations gives an unbiased estimate of <H> at the
@@ -22,12 +22,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
-from flax import serialization
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.utils import codec
 
 HERE = os.path.dirname(__file__)
 SAMPLES = os.path.join(HERE, 'data', 'flagship_6x6_deep48_samples.npy')
@@ -48,8 +48,8 @@ def _flagship():
                  num_conv_filters=48, kernel_size=3, symmetrize=True,
                  heisenberg_jx=-1.0)
     wf = build_wavefunction(cfg)
-    params = serialization.from_bytes(wf.init(jax.random.key(0)),
-                                      open(ARTIFACT, 'rb').read())
+    params = codec.from_bytes(wf.init(jax.random.key(0)),
+                              open(ARTIFACT, 'rb').read())
     return wf, params
 
 
@@ -84,3 +84,14 @@ def test_flagship_headline_pinned():
     assert abs(e_per_site - E_QMC) < BAND, (
         f'flagship headline drifted: E/N = {e_per_site:.6f}, '
         f'QMC {E_QMC} +/- {BAND}')
+
+
+@pytest.mark.gpu
+def test_flagship_forward_parity_on_gpu(gpu):
+    """Full-width deep48 forward on the GPU: logψ within 1e-4 of the CPU
+    reference at 'highest' precision, and the reweighted E/N within the
+    pin's band at both 'highest' and the default (TF32) precision
+    (chip_smoke.py phase 1)."""
+    from cgs_vmc_jax import gpu_checks
+    gpu_checks.flagship_parity('highest')
+    gpu_checks.flagship_parity(None)

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.ising import TransverseFieldIsingHamiltonian
-from cgs_vmc_tpu.sampler import metropolis, registry
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.ising import TransverseFieldIsingHamiltonian
+from cgs_vmc_jax.sampler import metropolis, registry
+from cgs_vmc_jax.utils import ed
 
 
 def _rbm_config(n, **kw):
@@ -160,8 +160,8 @@ def test_registry_declines_fast_paths_on_flip_move():
 
 
 def test_build_hamiltonian_dispatch_and_ergodicity_validation():
-    from cgs_vmc_tpu.train import build_hamiltonian
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.train import build_hamiltonian
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
 
     ising_cfg = _rbm_config(8, ising_h=0.8, ising_j=1.2)
     ham = build_hamiltonian(ising_cfg)
@@ -192,7 +192,7 @@ def test_tfim_sr_reaches_ground_state_energy():
     """N=8 chain at the critical point h=J=1: RBM + dense minSR lands on
     the ED ground-state energy (the LocalOperator + flip-move stack works
     end to end)."""
-    from cgs_vmc_tpu.optim.sr import StochasticReconfiguration
+    from cgs_vmc_jax.optim.sr import StochasticReconfiguration
 
     n = 8
     bonds = lattice.chain_bonds(n)

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.models.jastrow import JastrowWavefunction
-from cgs_vmc_tpu.sampler import fast_jastrow, metropolis, registry
+from cgs_vmc_jax import basis
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.models.jastrow import JastrowWavefunction
+from cgs_vmc_jax.sampler import fast_jastrow, metropolis, registry
 
 N = 8
 CHAINS = 64
@@ -140,7 +140,7 @@ def test_dispatch_selects_jastrow_delta():
     cfg = Config(num_sites=N, wavefunction_type='jastrow')
     assert registry.resolved_name(wf, cfg) == 'jastrow_delta'
     # Symmetrized wrapper or non-log output -> generic.
-    from cgs_vmc_tpu.models.symmetry import SymmetrizedWavefunction
+    from cgs_vmc_jax.models.symmetry import SymmetrizedWavefunction
     wf_sym = SymmetrizedWavefunction(
         wf, np.arange(N, dtype=np.int32)[None, :], spin_flip=True)
     assert registry.resolved_name(wf_sym, cfg) == 'generic'
@@ -155,10 +155,10 @@ def test_jastrow_trains_toward_ground_state():
     """SR on the Marshall-gauged N=8 chain: the Jastrow baseline descends
     well below the initial energy (it cannot reach the CNN floor — it is
     a two-body ansatz — but must capture most of the correlation)."""
-    from cgs_vmc_tpu import lattice
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax import lattice
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.utils import ed
 
     cfg = Config(num_sites=N, wavefunction_type='jastrow',
                  wavefunction_optimizer_type='SR',

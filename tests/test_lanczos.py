@@ -12,12 +12,12 @@ import numpy as np
 import jax
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import FullVector, build_wavefunction
-from cgs_vmc_tpu.ops import lanczos
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import FullVector, build_wavefunction
+from cgs_vmc_jax.ops import lanczos
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.utils import ed
 
 N = 8
 
@@ -127,7 +127,7 @@ def test_mc_evaluate_matches_exact():
 def test_trained_rbm_improves_on_chain():
     # End-to-end: a short SR-trained RBM's measured energy improves under
     # the Lanczos step and stays variational.
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
     cfg = Config(num_sites=N, wavefunction_type='rbm', num_fc_layers=0,
                  fc_layer_size=16, wavefunction_optimizer_type='SR',
                  batch_size=128, num_batches_per_epoch=2,
@@ -178,7 +178,7 @@ def test_tfim_moments_and_step():
     # The evaluator is operator-generic (any LocalOperator): TFIM moments
     # over the FULL 2^N basis match the dense Pauli matrix, and the step
     # improves a perturbed critical-point ground state.
-    from cgs_vmc_tpu.ops.ising import TransverseFieldIsingHamiltonian
+    from cgs_vmc_jax.ops.ising import TransverseFieldIsingHamiltonian
     n = 8
     bonds = lattice.chain_bonds(n)
     ham = TransverseFieldIsingHamiltonian(bonds, h_x=1.0, j_zz=1.0)
@@ -191,8 +191,8 @@ def test_tfim_moments_and_step():
     full = basis.enumerate_full_basis(n)
     # FullVector indexes the Sz sector; use a dense lookup over the full
     # basis instead: a tiny wavefunction wrapping the vector directly.
-    from cgs_vmc_tpu.models.base import Wavefunction as WF
-    from cgs_vmc_tpu.ops.logamp import LogAmp as LA
+    from cgs_vmc_jax.models.base import Wavefunction as WF
+    from cgs_vmc_jax.ops.logamp import LogAmp as LA
     import jax.numpy as jnp
 
     class DenseVector(WF):

@@ -7,7 +7,7 @@ from math import comb
 
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
+from cgs_vmc_jax import basis, lattice
 
 
 def test_chain_bonds_match_reference_default():
@@ -81,7 +81,7 @@ def test_adjacency_from_bonds():
 def test_j1j2_chain_nnn_dedup():
     """n=4 periodic chain: each NNN bond must appear once, not twice
     (round-1 ADVICE: duplicated NNN bonds doubled the effective J2)."""
-    from cgs_vmc_tpu.lattice import j1j2_chain_bonds
+    from cgs_vmc_jax.lattice import j1j2_chain_bonds
     bonds, mask = j1j2_chain_bonds(4)
     nnn = bonds[mask == 1.0]
     keys = {tuple(sorted(b)) for b in nnn.tolist()}
@@ -113,7 +113,7 @@ def test_displacement_pairs_chain():
 
 def test_triangular_lattice_geometry():
     """3 bonds/site, coordination 6, translation-invariant, dedup at L=2."""
-    from cgs_vmc_tpu.lattice import triangular_lattice_bonds
+    from cgs_vmc_jax.lattice import triangular_lattice_bonds
     bonds = triangular_lattice_bonds(4, 3)
     n = 12
     assert bonds.shape == (3 * n, 2)
@@ -132,8 +132,8 @@ def test_triangular_lattice_geometry():
 
 
 def test_triangular_config_dispatch():
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu import lattice
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax import lattice
     cfg = Config(num_sites=12, size_x=4, size_y=3,
                  lattice_type='triangular')
     bonds, couplings = lattice.bonds_and_couplings_for_config(cfg)
@@ -150,10 +150,10 @@ def test_triangular_config_dispatch():
 def test_triangular_local_energy_matches_dense_matrix():
     """Frustrated-lattice wiring: E_loc from the triangular bond list ==
     (H psi)(R)/psi(R) from the dense matrix on the same bonds."""
-    from cgs_vmc_tpu.lattice import triangular_lattice_bonds
-    from cgs_vmc_tpu.models.full_vector import FullVector
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.lattice import triangular_lattice_bonds
+    from cgs_vmc_jax.models.full_vector import FullVector
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.utils import ed
     import jax
     import jax.numpy as jnp
 
@@ -180,12 +180,12 @@ def test_triangular_complex_sr_descends():
     budget) stall at rel err 0.60-0.70 — the complex ansatz must get
     within 0.20 of ED (measured 0.12 at 250 epochs, seed 7), i.e. far
     below anything a positive amplitude can represent."""
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu.lattice import triangular_lattice_bonds
-    from cgs_vmc_tpu.models import build_wavefunction
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.optim.sr import StochasticReconfiguration
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax.lattice import triangular_lattice_bonds
+    from cgs_vmc_jax.models import build_wavefunction
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.optim.sr import StochasticReconfiguration
+    from cgs_vmc_jax.utils import ed
 
     n = 12
     config = Config(
@@ -218,7 +218,7 @@ def test_triangular_complex_sr_descends():
 
 def test_honeycomb_lattice_geometry():
     """3 bonds per unit cell, coordination 3, bipartite (even<->odd)."""
-    from cgs_vmc_tpu.lattice import honeycomb_lattice_bonds
+    from cgs_vmc_jax.lattice import honeycomb_lattice_bonds
     bonds = honeycomb_lattice_bonds(3, 3)
     n = 18
     assert bonds.shape == (3 * 9, 2)
@@ -242,9 +242,9 @@ def test_honeycomb_config_dispatch_and_marshall_gauge():
     """Dispatch + the physics: with jx = -1 (Marshall gauge) the 2x2-cell
     honeycomb AFM ground state is positive and the gauge leaves the
     spectrum unchanged."""
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu import lattice
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax import lattice
+    from cgs_vmc_jax.utils import ed
     cfg = Config(num_sites=8, size_x=2, size_y=2,
                  lattice_type='honeycomb')
     bonds, couplings = lattice.bonds_and_couplings_for_config(cfg)
@@ -265,12 +265,12 @@ def test_honeycomb_config_dispatch_and_marshall_gauge():
 def test_honeycomb_sr_reaches_ed():
     """End-to-end: Marshall-gauged RBM + dense SR on the 2x2-cell (8-site)
     honeycomb AFM torus converges to the ED ground state."""
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu import lattice
-    from cgs_vmc_tpu.models import build_wavefunction
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.optim.sr import StochasticReconfiguration
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax import lattice
+    from cgs_vmc_jax.models import build_wavefunction
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.optim.sr import StochasticReconfiguration
+    from cgs_vmc_jax.utils import ed
 
     n = 8
     config = Config(
@@ -301,7 +301,7 @@ def test_honeycomb_sr_reaches_ed():
 def test_kagome_lattice_geometry():
     """6 bonds/cell, coordination 4, corner-sharing triangles (odd
     cycles -> frustrated, NOT bipartite)."""
-    from cgs_vmc_tpu.lattice import kagome_lattice_bonds
+    from cgs_vmc_jax.lattice import kagome_lattice_bonds
     bonds = kagome_lattice_bonds(3, 3)
     n = 27
     assert bonds.shape == (6 * 9, 2)
@@ -323,11 +323,11 @@ def test_kagome_lattice_geometry():
 def test_kagome_config_dispatch_and_local_energy():
     """Dispatch + wiring: kagome E_loc from the bond list == the dense
     matrix on the same bonds (2x2 cells, 12 sites)."""
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu import lattice
-    from cgs_vmc_tpu.models.full_vector import FullVector
-    from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax import lattice
+    from cgs_vmc_jax.models.full_vector import FullVector
+    from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+    from cgs_vmc_jax.utils import ed
     import jax.numpy as jnp
 
     cfg = Config(num_sites=12, size_x=2, size_y=2, lattice_type='kagome')

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu.ops import logamp
+from cgs_vmc_jax.ops import logamp
 
 
 def _amp(values):

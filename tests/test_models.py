@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import (
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import (
     FullVector,
     WAVEFUNCTION_TYPES,
     build_wavefunction,
 )
-from cgs_vmc_tpu.ops import logamp
+from cgs_vmc_jax.ops import logamp
 
 N = 8
 BATCH = 4
@@ -121,7 +121,7 @@ def test_conv2d_periodic_translation_invariance():
 
 def test_determinant_ansatz_matches_dense_det():
     """pbdg amplitude == det of the (up-rows, down-cols) submatrix."""
-    from cgs_vmc_tpu.models.determinant import ProjectedBDG
+    from cgs_vmc_jax.models.determinant import ProjectedBDG
     wf = ProjectedBDG(N)
     params = wf.init(jax.random.key(0))
     configs = np.asarray(_configs_batch())
@@ -136,7 +136,7 @@ def test_determinant_ansatz_matches_dense_det():
 
 
 def test_mps_matches_dense_contraction():
-    from cgs_vmc_tpu.models.mps import MatrixProductState
+    from cgs_vmc_jax.models.mps import MatrixProductState
     wf = MatrixProductState(num_sites=N, bond_dimension=3)
     params = wf.init(jax.random.key(2))
     configs = np.asarray(_configs_batch())

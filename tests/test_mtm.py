@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.models import FullVector
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.sampler import metropolis, mtm
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.models import FullVector
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.sampler import metropolis, mtm
+from cgs_vmc_jax.utils import ed
 
 N = 8
 BONDS = lattice.chain_bonds(N)
@@ -80,9 +80,9 @@ def test_mtm_energy_estimate():
 
 def test_make_sweeps_fn_dispatches_to_mtm():
     """config.mtm_candidates > 1 routes training sweeps through MTM."""
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu.models import build_wavefunction
-    from cgs_vmc_tpu.optim.common import make_sweeps_fn
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax.models import build_wavefunction
+    from cgs_vmc_jax.optim.common import make_sweeps_fn
     config = Config(num_sites=N, wavefunction_type='fully_connected',
                     num_fc_layers=1, fc_layer_size=8, mtm_candidates=4)
     wf = build_wavefunction(config)
@@ -102,8 +102,8 @@ def test_mtm_acceptance_higher_than_single_try():
     """With k candidates the per-step acceptance should beat single-try
     on the same peaked wavefunction."""
     # Moderately peaked RBM to depress single-try acceptance.
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu.models import build_wavefunction
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax.models import build_wavefunction
     config = Config(num_sites=N, wavefunction_type='rbm',
                     num_fc_layers=0, fc_layer_size=16)
     wf = build_wavefunction(config)

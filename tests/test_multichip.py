@@ -10,12 +10,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import EnergyGradientOptimizer, StochasticReconfiguration
-from cgs_vmc_tpu.parallel import mesh as mesh_lib
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import EnergyGradientOptimizer, StochasticReconfiguration
+from cgs_vmc_jax.parallel import mesh as mesh_lib
 
 N = 8
 JX = -1.0
@@ -115,9 +115,9 @@ def test_sharded_gradient_matches_single_device():
 def test_sharded_evaluation_matches_ed():
     """Multi-chip MC evaluation farm (benchmark config #5) on the exact
     wavefunction: chip-parallel chains, pmean'd samples, E == E0."""
-    from cgs_vmc_tpu.models import FullVector
-    from cgs_vmc_tpu.evaluate import evaluate_operator
-    from cgs_vmc_tpu.utils import ed
+    from cgs_vmc_jax.models import FullVector
+    from cgs_vmc_jax.evaluate import evaluate_operator
+    from cgs_vmc_jax.utils import ed
 
     bonds = lattice.chain_bonds(N)
     e0, v0 = ed.ground_state(N, bonds)
@@ -145,7 +145,7 @@ def test_dryrun_multichip_entry():
 
 def test_sharded_itswo_epoch_runs():
     """IT-SWO (supervisor pytree in extra{}) under shard_map."""
-    from cgs_vmc_tpu.optim import ImaginaryTimeSWO
+    from cgs_vmc_jax.optim import ImaginaryTimeSWO
 
     n_dev = 4
     config = Config(
@@ -173,9 +173,9 @@ def test_basis_iter_devices_iterate_disjoint_batches():
     data_key made every device compute the same batches, so multi-device
     distillation pmean'd N identical gradients)."""
     from jax.sharding import Mesh, PartitionSpec as P
-    from cgs_vmc_tpu import basis
-    from cgs_vmc_tpu.models.full_vector import FullVector
-    from cgs_vmc_tpu.optim.swo import BasisIterationSWO
+    from cgs_vmc_jax import basis
+    from cgs_vmc_jax.models.full_vector import FullVector
+    from cgs_vmc_jax.optim.swo import BasisIterationSWO
 
     dim = basis.enumerate_sz_basis(N).shape[0]  # 70 for N=8
     config = Config(
@@ -230,7 +230,7 @@ def test_sharded_transformer_update_matches_single_device():
     covered family-independently by test_sharded_gradient/* above."""
     from functools import partial
     from jax.sharding import PartitionSpec as P
-    from cgs_vmc_tpu import basis
+    from cgs_vmc_jax import basis
 
     n_dev = 4
     config = Config(

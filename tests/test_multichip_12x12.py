@@ -16,12 +16,12 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim.sr import StochasticReconfiguration
-from cgs_vmc_tpu.parallel import mesh as mesh_lib
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim.sr import StochasticReconfiguration
+from cgs_vmc_jax.parallel import mesh as mesh_lib
 
 NX = NY = 12
 N = NX * NY

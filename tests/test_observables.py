@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.evaluate import evaluate_operator
-from cgs_vmc_tpu.models import FullVector
-from cgs_vmc_tpu.ops.observables import (
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.evaluate import evaluate_operator
+from cgs_vmc_jax.models import FullVector
+from cgs_vmc_jax.ops.observables import (
     SpinStructureFactor,
     SzSzCorrelation,
     StaggeredMagnetizationSquared,
@@ -16,7 +16,7 @@ from cgs_vmc_tpu.ops.observables import (
     chain_positions,
     square_positions,
 )
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax.utils import ed
 
 N = 8
 BONDS = lattice.chain_bonds(N)
@@ -95,8 +95,8 @@ def test_structure_factor_pipi_staggered_identity_2d():
     pos = square_positions(L, L)
     sub = lattice.marshall_sublattice(n, L, L)
     # Random Sz=0 configurations via the standard initializer.
-    from cgs_vmc_tpu.sampler import metropolis
-    from cgs_vmc_tpu.models.feedforward import RestrictedBoltzmannNetwork
+    from cgs_vmc_jax.sampler import metropolis
+    from cgs_vmc_jax.models.feedforward import RestrictedBoltzmannNetwork
     wf = RestrictedBoltzmannNetwork(n, 1, 4)
     states = metropolis.init_sampler(
         jax.random.key(3), wf, wf.init(jax.random.key(4)), n, 64).configs
@@ -199,8 +199,8 @@ def test_total_spin_squared_singlet_and_gauge():
     — in the bare basis AND for the Marshall-gauged state with the
     per-pair exchange-sign correction.  A random sector state gives the
     dense-matrix value."""
-    from cgs_vmc_tpu.evaluate import exact_expectation
-    from cgs_vmc_tpu.ops.observables import TotalSpinSquared
+    from cgs_vmc_jax.evaluate import exact_expectation
+    from cgs_vmc_jax.ops.observables import TotalSpinSquared
 
     # Bare basis (jx = +1): singlet.
     e0, v0 = ed.ground_state(N, BONDS, j_x=1.0, j_z=1.0)

@@ -12,16 +12,16 @@ import numpy as np
 import jax
 import pytest
 
-from cgs_vmc_tpu import lattice
-from cgs_vmc_tpu.cli import main as cli_main
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-from cgs_vmc_tpu.evaluate import evaluate_operator
-from cgs_vmc_tpu.train import distill, train
-from cgs_vmc_tpu.utils import checkpoint as ckpt_lib
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import lattice
+from cgs_vmc_jax.cli import main as cli_main
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+from cgs_vmc_jax.evaluate import evaluate_operator
+from cgs_vmc_jax.train import distill, train
+from cgs_vmc_jax.utils import checkpoint as ckpt_lib
+from cgs_vmc_jax.utils import ed
 
 N = 8
 
@@ -127,7 +127,7 @@ def test_cli_train_and_eval(tmp_path, capsys):
 def test_benchmark_configs_load_and_build():
     """The shipped configs/*.json must parse and build their ansatzes."""
     import glob
-    from cgs_vmc_tpu import models as models_lib
+    from cgs_vmc_jax import models as models_lib
     paths = sorted(glob.glob('configs/*.json'))
     assert len(paths) >= 5
     for path in paths:
@@ -180,7 +180,7 @@ def test_j_file_bonds(tmp_path):
     """J.txt in the checkpoint dir overrides the default chain
     (reference run_training.py:103-109)."""
     import numpy as np
-    from cgs_vmc_tpu.train import build_hamiltonian
+    from cgs_vmc_jax.train import build_hamiltonian
     run_dir = tmp_path / 'jrun'
     run_dir.mkdir()
     bonds = np.asarray([[0, 3], [1, 2], [4, 7]])

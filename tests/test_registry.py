@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.optim import common
-from cgs_vmc_tpu.sampler import metropolis, registry
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.optim import common
+from cgs_vmc_jax.sampler import metropolis, registry
 
 
 def _wf(wtype, **kw):
@@ -25,8 +25,8 @@ def registry_snapshot():
 
 
 def test_builtin_dispatch_order():
-    # Pure RBM on CPU: the Pallas path requires the TPU backend, so the
-    # generic sampler wins (this suite runs on the virtual CPU mesh).
+    # Pure RBM on CPU: the compiled kernel entry requires the GPU backend,
+    # so the generic sampler wins (this suite runs on the virtual CPU mesh).
     wf, config = _wf('rbm', num_fc_layers=0, fc_layer_size=16)
     assert registry.resolved_name(wf, config) == 'generic'
 
@@ -53,6 +53,22 @@ def test_builtin_dispatch_order():
     wf_nnb, config_nnb = _wf('fully_connected_nnb', num_fc_layers=1,
                              fc_layer_size=12)
     assert registry.resolved_name(wf_nnb, config_nnb) == 'generic'
+
+
+@pytest.mark.parametrize('backend,expected', [('gpu', 'rbm_pallas'),
+                                              ('cpu', 'generic')])
+def test_rbm_kernel_entry_gated_to_gpu(monkeypatch, backend, expected):
+    """The pure RBM resolves to the compiled kernel on the GPU backend
+    only, and never with a feature MLP, a flip move, another Sz sector or
+    use_fast_sampler=False."""
+    monkeypatch.setattr(jax, 'default_backend', lambda: backend)
+    wf, config = _wf('rbm', num_fc_layers=0, fc_layer_size=16)
+    assert registry.resolved_name(wf, config) == expected
+    for off in (dict(use_fast_sampler=False), dict(mc_move_type='flip'),
+                dict(total_sz2=2)):
+        assert registry.resolved_name(wf, config.replace(**off)) == 'generic'
+    wf_mlp, config_mlp = _wf('rbm', num_fc_layers=1, fc_layer_size=16)
+    assert registry.resolved_name(wf_mlp, config_mlp) == 'generic'
 
 
 def test_third_party_registration(registry_snapshot):
@@ -106,8 +122,8 @@ def test_nnb_matrix_delta_is_full_rank():
     wf = build_wavefunction(config)
     params = wf.init(jax.random.key(0))
 
-    from cgs_vmc_tpu.models import nn
-    from cgs_vmc_tpu.ops.logamp import ACTIVATIONS
+    from cgs_vmc_jax.models import nn
+    from cgs_vmc_jax.ops.logamp import ACTIVATIONS
 
     def emit(configs):
         act = ACTIVATIONS[config.nonlinearity]

@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import FullVector
-from cgs_vmc_tpu.ops import renyi
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import FullVector
+from cgs_vmc_jax.ops import renyi
+from cgs_vmc_jax.utils import ed
 
 N = 8
 BONDS = lattice.chain_bonds(N)
@@ -50,7 +50,7 @@ def test_swap_values_exact_mean():
 def test_swap_values_complex_state():
     """The swap estimator is phase-correct: a complex state's exact
     double-sum still equals tr(rho_A²)."""
-    from cgs_vmc_tpu.models.complex_phase import ComplexPhaseWavefunction
+    from cgs_vmc_jax.models.complex_phase import ComplexPhaseWavefunction
     rng = np.random.default_rng(2)
     states_np = basis.enumerate_sz_basis(N)
     dim = states_np.shape[0]

@@ -3,8 +3,8 @@
 import numpy as np
 import jax
 
-from cgs_vmc_tpu import basis
-from cgs_vmc_tpu.models.conv import ResNet1D, ResNet2D
+from cgs_vmc_jax import basis
+from cgs_vmc_jax.models.conv import ResNet1D, ResNet2D
 
 N = 8
 
@@ -35,8 +35,8 @@ def test_bottleneck_resnet2d():
 def test_resnet_config_knobs_reachable():
     """conv_strides and resnet_bottleneck must be live from Config — round-1
     review found them plumbed into __init__ but dead in apply."""
-    from cgs_vmc_tpu.config import Config
-    from cgs_vmc_tpu.models import build_wavefunction
+    from cgs_vmc_jax.config import Config
+    from cgs_vmc_jax.models import build_wavefunction
     cfg = Config(num_sites=N, wavefunction_type='res_net_1d',
                  num_resnet_blocks=2, num_conv_filters=4, kernel_size=3,
                  conv_strides=2, resnet_bottleneck=True)

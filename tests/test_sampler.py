@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.models import FullVector
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.sampler import metropolis
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.models import FullVector
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.sampler import metropolis
+from cgs_vmc_jax.utils import ed
 
 N = 8
 BONDS = lattice.chain_bonds(N)
@@ -121,8 +121,8 @@ def test_detailed_balance_two_site_toy():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from cgs_vmc_tpu.models import FullVector
-    from cgs_vmc_tpu.sampler import metropolis
+    from cgs_vmc_jax.models import FullVector
+    from cgs_vmc_jax.sampler import metropolis
 
     a, b = 2.0, 1.0
     wf = FullVector.for_sector(2, np.asarray([a, b], np.float32))

@@ -7,11 +7,11 @@ import jax
 import jax.flatten_util
 import jax.numpy as jnp
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim.sr import StochasticReconfiguration
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim.sr import StochasticReconfiguration
 
 N = 8
 BONDS = lattice.chain_bonds(N)
@@ -114,7 +114,7 @@ def test_dense_cg_epoch_descends():
     """End-to-end: an SR epoch with sr_solver='dense_cg' runs and lowers
     the energy on the N=8 chain."""
     config, wf, opt = _setup('dense_cg')
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
     opt = GROUND_STATE_OPTIMIZERS['SR'](
         wf, HeisenbergHamiltonian(BONDS, -1.0, 1.0),
         config.replace(learning_rates=[0.05], learning_rate_stops=[],
@@ -150,7 +150,7 @@ def test_sample_cg_sharded_matches_single_device():
     solution: psum'd matvecs/dots reproduce the single-device solve."""
     from functools import partial
     from jax.sharding import PartitionSpec as P
-    from cgs_vmc_tpu.parallel import mesh as mesh_lib
+    from cgs_vmc_jax.parallel import mesh as mesh_lib
 
     config, wf, opt = _setup('sample_cg')
     params = wf.init(jax.random.key(7))
@@ -260,7 +260,7 @@ def test_update_from_samples_matches_epoch():
     the flagship driver scripts (examples/heisenberg_12x12_deep.py,
     examples/heisenberg_6x6_transformer.py) rely on."""
     from jax import lax
-    from cgs_vmc_tpu.sampler import metropolis
+    from cgs_vmc_jax.sampler import metropolis
 
     config, wf, opt = _setup('dense')
     state = opt.init_state(jax.random.key(20))

@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.models.symmetry import (
+from cgs_vmc_jax import basis
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.models.symmetry import (
     SymmetrizedWavefunction,
     square_point_group,
 )
-from cgs_vmc_tpu.ops import logamp
+from cgs_vmc_jax.ops import logamp
 
 
 def test_square_point_group_is_a_group():

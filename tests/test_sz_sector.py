@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import FullVector, build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
-from cgs_vmc_tpu.sampler import metropolis, registry
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import FullVector, build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
+from cgs_vmc_jax.sampler import metropolis, registry
+from cgs_vmc_jax.utils import ed
 
 N = 8
 JX = -1.0

@@ -8,11 +8,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.sampler import metropolis, registry, tempering
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.sampler import metropolis, registry, tempering
 
 N = 8
 
@@ -155,7 +155,7 @@ def test_pt_crosses_barrier_single_temperature_cannot():
     """Two spin configurations far apart in exchange-move distance carry
     ~all of |psi|^2; chains start in mode A.  Single-temperature chains
     stay trapped; the tempered ladder ferries chains to mode B."""
-    from cgs_vmc_tpu.models import FullVector
+    from cgs_vmc_jax.models import FullVector
 
     states = np.asarray(basis.enumerate_sz_basis(N))
     mode_a = np.asarray([1, 1, 1, 1, -1, -1, -1, -1], np.float32)
@@ -207,7 +207,7 @@ def test_sr_epoch_with_tempering_descends():
     """End-to-end: SR training with pt_replicas=2 runs through the
     standard optimizer path (init/refresh/sweeps dispatch) and lowers
     the energy."""
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
     cfg = _rbm_config(
         batch_size=64, num_batches_per_epoch=2, pt_replicas=2,
         num_equilibration_sweeps=2, num_monte_carlo_sweeps=1,
@@ -231,7 +231,7 @@ def test_sr_epoch_with_tempering_descends():
 def test_dual_sampling_swo_with_tempering():
     """DualSamplingSWO drives BOTH sampler states through the registry,
     so its frozen-target chains keep their PT ladder intact."""
-    from cgs_vmc_tpu.optim import SUPERVISED_OPTIMIZERS
+    from cgs_vmc_jax.optim import SUPERVISED_OPTIMIZERS
     cfg = _rbm_config(
         batch_size=64, num_batches_per_epoch=2, pt_replicas=2,
         num_equilibration_sweeps=1, num_monte_carlo_sweeps=1,
@@ -252,11 +252,11 @@ def test_dual_sampling_swo_with_tempering():
 def test_pt_state_shards_over_chain_mesh():
     """All PTSamplerState leaves are chain-leading, so the canonical
     mesh sharding (every sampler leaf on its leading axis) applies."""
-    from cgs_vmc_tpu.parallel import mesh as pmesh
+    from cgs_vmc_jax.parallel import mesh as pmesh
     if len(jax.devices()) < 8:
         import pytest
         pytest.skip('needs the 8-device virtual mesh')
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
     cfg = _rbm_config(
         batch_size=64, num_batches_per_epoch=2, pt_replicas=3,
         num_equilibration_sweeps=1, num_monte_carlo_sweeps=1,

@@ -11,13 +11,13 @@ import jax.flatten_util
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import FullVector, build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS, SUPERVISED_OPTIMIZERS
-from cgs_vmc_tpu.utils import ed
-from cgs_vmc_tpu.evaluate import evaluate_vector, overlap_with_vector
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import FullVector, build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS, SUPERVISED_OPTIMIZERS
+from cgs_vmc_jax.utils import ed
+from cgs_vmc_jax.evaluate import evaluate_vector, overlap_with_vector
 
 N = 8
 JX = -1.0
@@ -114,7 +114,7 @@ def test_basis_iteration_covers_full_basis_without_replacement():
     training.py:242-251), not with-replacement batches: within one pass
     every basis row appears exactly once."""
     import jax.numpy as jnp
-    from cgs_vmc_tpu.optim.swo import BasisIterationSWO
+    from cgs_vmc_jax.optim.swo import BasisIterationSWO
 
     dim = basis.enumerate_sz_basis(N).shape[0]  # 70 for N=8
     config = _config(batch_size=35, num_batches_per_epoch=2,
@@ -141,7 +141,7 @@ def test_basis_iteration_seed_changes_order():
     """config.seed must change the basis-iteration permutation sequence
     (round-2 review: a constant data_key made every run identical)."""
     import jax.numpy as jnp
-    from cgs_vmc_tpu.optim.swo import BasisIterationSWO
+    from cgs_vmc_jax.optim.swo import BasisIterationSWO
 
     dim = basis.enumerate_sz_basis(N).shape[0]
     config = _config(batch_size=35, num_batches_per_epoch=2,
@@ -164,9 +164,9 @@ def test_param_ema_tracks_and_resumes(tmp_path):
     exactly, is checkpointed, survives resume, and `cgs eval --ema`'s
     restore helper reads it back."""
     import numpy as np
-    from cgs_vmc_tpu.models import build_wavefunction
-    from cgs_vmc_tpu.utils import checkpoint as ckpt_lib
-    from cgs_vmc_tpu.train import train
+    from cgs_vmc_jax.models import build_wavefunction
+    from cgs_vmc_jax.utils import checkpoint as ckpt_lib
+    from cgs_vmc_jax.train import train
 
     cfg = Config(num_sites=8, wavefunction_type='rbm',
                  num_fc_layers=0, fc_layer_size=8,
@@ -205,7 +205,7 @@ def test_param_ema_tracks_and_resumes(tmp_path):
     # (Integration-level: d*ema + (1-d)*params with d=0.8.)
     # Covered implicitly by the restore equality above plus the lag
     # assertion; a unit check of the wrapper:
-    from cgs_vmc_tpu.train import _ema_wrap
+    from cgs_vmc_jax.train import _ema_wrap
     def fake_epoch(s, axis_name=None):
         new_p = jax.tree.map(lambda p: p + 1.0, s.params)
         return s._replace(params=new_p), {'energy': jnp.zeros(())}
@@ -232,7 +232,7 @@ def test_param_ema_enabled_on_resume_of_old_run(tmp_path):
                 optimizer='gradient', heisenberg_jx=-1.0,
                 use_fast_sampler=False,
                 checkpoint_dir=str(tmp_path), seed=3)
-    from cgs_vmc_tpu.train import train
+    from cgs_vmc_jax.train import train
     train(Config(num_epochs=2, param_ema_decay=0.0, **base))
     state = train(Config(num_epochs=4, param_ema_decay=0.8, **base),
                   resume=True)

@@ -12,14 +12,14 @@ import jax.numpy as jnp
 import pytest
 import scipy.linalg
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import FullVector, build_wavefunction
-from cgs_vmc_tpu.models.complex_phase import ComplexPhaseWavefunction
-from cgs_vmc_tpu.ops import logamp
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.optim.tvmc import TimeEvolution, tdvp_direction
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import FullVector, build_wavefunction
+from cgs_vmc_jax.models.complex_phase import ComplexPhaseWavefunction
+from cgs_vmc_jax.ops import logamp
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.optim.tvmc import TimeEvolution, tdvp_direction
+from cgs_vmc_jax.utils import ed
 
 N = 6
 
@@ -150,7 +150,7 @@ def test_real_time_requires_complex_ansatz():
 @pytest.mark.slow
 def test_cli_evolve(tmp_path, capsys):
     """Train a tiny complex ansatz, then `cgs evolve` it in imaginary time."""
-    from cgs_vmc_tpu.cli import main as cli_main
+    from cgs_vmc_jax.cli import main as cli_main
     run_dir = str(tmp_path / 'evolve_run')
     rc = cli_main([
         'train', '--checkpoint_dir', run_dir,

@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from cgs_vmc_tpu import basis, lattice
-from cgs_vmc_tpu.config import Config
-from cgs_vmc_tpu.models import build_wavefunction
-from cgs_vmc_tpu.ops.heisenberg import HeisenbergHamiltonian
-from cgs_vmc_tpu.utils import ed
+from cgs_vmc_jax import basis, lattice
+from cgs_vmc_jax.config import Config
+from cgs_vmc_jax.models import build_wavefunction
+from cgs_vmc_jax.ops.heisenberg import HeisenbergHamiltonian
+from cgs_vmc_jax.utils import ed
 
 N = 8
 BONDS = lattice.chain_bonds(N)
@@ -138,7 +138,7 @@ def test_complex_sr_trains_on_twisted_chain():
                  sr_delta_clip=1.0, seed=9)
     wf = build_wavefunction(cfg)
     ham = HeisenbergHamiltonian(bonds, -1.0, 1.0, twist_phases=phases)
-    from cgs_vmc_tpu.optim import GROUND_STATE_OPTIMIZERS
+    from cgs_vmc_jax.optim import GROUND_STATE_OPTIMIZERS
     opt = GROUND_STATE_OPTIMIZERS['SR'](wf, ham, cfg)
     state = opt.init_state(jax.random.key(11))
     epoch_fn = jax.jit(opt.epoch)
@@ -154,7 +154,7 @@ def test_complex_sr_trains_on_twisted_chain():
 def test_config_builds_twisted_hamiltonian():
     """config.twist_phi wires through build_hamiltonian for chains and
     square lattices (geometry resolution mirrors the bond builder)."""
-    from cgs_vmc_tpu.train import build_hamiltonian
+    from cgs_vmc_jax.train import build_hamiltonian
 
     chain_cfg = Config(num_sites=N, heisenberg_jx=-1.0, twist_phi=PHI)
     ham = build_hamiltonian(chain_cfg)
@@ -179,7 +179,7 @@ def test_twist_refuses_unsupported_geometries(tmp_path):
     twist_phases derives coordinates from the built-in site indexing, so
     honeycomb/kagome/J-file graphs would silently get unphysical phases
     (round-4 advisor finding)."""
-    from cgs_vmc_tpu.train import build_hamiltonian
+    from cgs_vmc_jax.train import build_hamiltonian
     import pytest
 
     with pytest.raises(ValueError, match='twist_phi'):
